@@ -1,4 +1,4 @@
-// Native line-mesh builder — the TPU build's equivalent of the reference's
+// Native line-mesh builder — this build's equivalent of the reference's
 // per-frame CPU hot path: polyline normal/miter computation and ribbon
 // attribute fill (`src/geom/line/index.js:73-117` + `polyline-normals`),
 // which the reference re-runs per pointer-path per frame.

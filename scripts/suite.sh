@@ -1,11 +1,10 @@
 #!/bin/bash
-# Full-suite CI runner: crash-isolated workers + one retry (VERDICT r4 #2).
+# Full-suite CI runner: crash-isolated workers + one retry.
 #
-# The suite is compile-bound and carries a rare environmental hazard on
-# this box: XLA CPU compiles segfault ~once per few hundred compiles in a
-# long-lived process (observed at a DIFFERENT test each time — r4 judge at
-# test 195 inside cache deserialisation, r5 at test 211 inside a fresh
-# backend compile; each crashed test passes alone). Two defences:
+# The suite is compile-bound, and long-lived XLA CPU processes have been
+# seen to segfault about once per few hundred compiles, at a different test
+# each time (inside cache deserialisation or a fresh backend compile; each
+# crashed test passes alone). Two defences:
 #
 #   1. conftest.py's poison-resistant persistent cache (dead-pid sentinel
 #      nukes a dir a crashed run may have truncated);

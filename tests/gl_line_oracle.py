@@ -16,7 +16,7 @@ WebGL1 semantics):
 The diamond-exit endpoint rule differs by ≤1 fragment per segment between
 real GPUs; this oracle uses the pixel-centre-inclusion form, which is within
 that cross-GPU variation. Used by tests/test_splat_oracle.py to MEASURE the
-deposit deviation of the TPU splat (euclidean-length isotropic samples) from
+deposit deviation of the XLA splat (euclidean-length isotropic samples) from
 the GL pen (major-extent, axis-aligned) instead of merely documenting it.
 """
 

@@ -169,3 +169,33 @@ def bokeh_exact(view, radius, amount):
         div += wgt
     out = acc / div
     return np.concatenate([out, view[3:4]])
+
+
+def box_stack_reference(img, radii):
+    """The blur stack as sequential edge-replicated box blurs, in float64:
+    each level applies a box of radius `max(1, (r - prev) // 2 + 1)` twice
+    along rows and columns to the previous level. The operator
+    `ops/post.blur_stack` must reproduce with its dense matrices. Returns
+    `[img, level_1, ..., level_L]`."""
+
+    def box_axis(x, r, axis):
+        pad = [(0, 0)] * x.ndim
+        pad[axis] = (r + 1, r)
+        c = np.cumsum(np.pad(x, pad, mode="edge"), axis=axis)
+        n = x.shape[axis]
+        hi = np.take(c, np.arange(2 * r + 1, 2 * r + 1 + n), axis=axis)
+        lo = np.take(c, np.arange(n), axis=axis)
+        return (hi - lo) / (2 * r + 1)
+
+    def box(x, r):
+        return box_axis(box_axis(x, r, 1), r, 2)
+
+    cur = np.asarray(img, np.float64)
+    stack = [cur]
+    prev = 0
+    for r in radii:
+        rr = max(1, (r - prev) // 2 + 1)
+        cur = box(box(cur, rr), rr)
+        stack.append(cur)
+        prev = r
+    return stack

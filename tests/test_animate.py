@@ -5,7 +5,7 @@ import math
 
 import pytest
 
-from tendrils_tpu.animate import (Player, Timeline, apply_span, bezier_ease,
+from tendrils.animate import (Player, Timeline, apply_span, bezier_ease,
                                   frame, join_curve, tween, tween_value)
 
 

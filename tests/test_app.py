@@ -4,9 +4,9 @@ keyboard map, scroll sequencer (SURVEY §4 golden-replay strategy)."""
 import numpy as np
 import pytest
 
-from tendrils_tpu.app import PRESETS, TendrilsDemo
-from tendrils_tpu.app.keys import KeyMash
-from tendrils_tpu.app.sub import SubSequencer
+from tendrils.app import PRESETS, TendrilsDemo
+from tendrils.app.keys import KeyMash
+from tendrils.app.sub import SubSequencer
 
 
 def small_demo(**settings):

@@ -7,10 +7,10 @@ import wave
 import numpy as np
 import pytest
 
-from tendrils_tpu.audio import (Analyser, AudioTexture, AudioTrigger,
+from tendrils.audio import (Analyser, AudioTexture, AudioTrigger,
                                 WavAnalyser, mean_weight, order_log_rates,
                                 peak, peak_pos, sum_weight)
-from tendrils_tpu.audio.data_log import make_log, make_order_log, step
+from tendrils.audio.data_log import make_log, make_order_log, step
 
 
 class TestDataLog:

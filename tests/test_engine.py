@@ -3,10 +3,11 @@ determinism at fixed timestep (SURVEY §4 golden-trajectory strategy)."""
 
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
-from tendrils_tpu import EngineConfig, Tendrils
-from tendrils_tpu.const import INERT
-from tendrils_tpu.ops import spawn
+from tendrils import EngineConfig, Tendrils
+from tendrils.const import INERT
+from tendrils.ops import spawn
 
 
 def small_engine(**kw):
@@ -158,3 +159,13 @@ class TestFlowResDecoupled:
         assert eng.sim.flow.shape == (4, 24, 32)
         assert np.asarray(eng.sim.flow)[3].max() > 0
         assert np.isfinite(np.asarray(eng.sim.particles)).all()
+
+
+@pytest.mark.parametrize("option", [
+    "splat_backend", "gather_backend", "fused_draw", "carry_force",
+    "resident_stream", "merge_reorder"])
+def test_kernel_selection_options_are_gone(option):
+    """The engine has one path (XLA scatter/gather); the options that chose
+    the removed kernel backends are refused, not silently ignored."""
+    with pytest.raises(TypeError):
+        EngineConfig(**{option: "pallas"})

@@ -11,15 +11,14 @@ import dataclasses
 import jax.numpy as jnp
 import numpy as np
 
-from tendrils_tpu import EngineConfig, Tendrils
-from tendrils_tpu.ops import post, spawn
+from tendrils import EngineConfig, Tendrils
+from tendrils.ops import post, spawn
 
 
 def make_engine():
     eng = Tendrils(EngineConfig(root_num=16, view_res=(32, 64),
                                 flow_samples=2, flow_rows=1,
-                                view_samples=2, splat_backend="xla",
-                                gather_backend="xla", fused_draw=False))
+                                view_samples=2))
     eng.setup()
     eng.spawn_shader(lambda p, e: spawn.ball(p, e._frag_xy, 0.6, 0.01))
     return eng
@@ -59,7 +58,7 @@ def test_step_draw_io_matches_separate_calls():
     b.set_color_map(post.blend(views, jnp.asarray(alphas, jnp.float32)))
     b.step_draw()
     b.inject_flow_segments(*seg)
-    from tendrils_tpu.ops.optical_flow import optical_flow
+    from tendrils.ops.optical_flow import optical_flow
     payload = optical_flow(jnp.asarray(of[0]), jnp.asarray(of[1]),
                            jnp.float32(b.timer.time),
                            offset=jnp.float32(0.05),
@@ -113,11 +112,9 @@ def test_demo_render_is_single_dispatch():
     `step_draw_io` — the per-stage facade methods (step_draw,
     inject_flow_segments, composite_flow, set_color_map) must NOT be hit
     during render()."""
-    from tendrils_tpu.app.demo import TendrilsDemo
+    from tendrils.app.demo import TendrilsDemo
 
-    demo = TendrilsDemo({"rootNum": 16}, view_res=(32, 64),
-                        splat_backend="xla", gather_backend="xla",
-                        fused_draw=False)
+    demo = TendrilsDemo({"rootNum": 16}, view_res=(32, 64))
 
     forbidden = []
 
@@ -145,7 +142,7 @@ def test_demo_render_is_single_dispatch():
 def test_paused_io_still_applies_inputs():
     """Paused timer skips only the STEP: colour maps, pointer segments and
     optical flow still land (ref keeps drawing flow input every frame,
-    `demo.main.js:1107-1160`; ADVICE r2)."""
+    `demo.main.js:1107-1160`)."""
     cm, alphas, seg, of = inputs()
     eng = make_engine()
     eng.timer.tick()

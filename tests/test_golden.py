@@ -14,9 +14,9 @@ import hashlib
 
 import numpy as np
 
-from tendrils_tpu import EngineConfig, Tendrils
-from tendrils_tpu.app import TendrilsDemo
-from tendrils_tpu.ops import spawn
+from tendrils import EngineConfig, Tendrils
+from tendrils.app import TendrilsDemo
+from tendrils.ops import spawn
 
 
 def _traj_digest(arr, decimals=4):
@@ -75,7 +75,7 @@ class TestGolden:
     def test_timeline_replay_matches_seek(self):
         # Playing a timeline forwards lands on the same tweened values as
         # seeking straight to the time (calls aside) — replay consistency.
-        from tendrils_tpu.animate import Player, frame
+        from tendrils.animate import Player, frame
 
         def mk():
             return Player({"t": [frame({"x": 0.0, "y": 1.0}, 0.0),

@@ -2,10 +2,10 @@
 
 import numpy as np
 
-from tendrils_tpu import EngineConfig, Tendrils
-from tendrils_tpu.io import (load_checkpoint, save_checkpoint, save_png,
+from tendrils import EngineConfig, Tendrils
+from tendrils.io import (load_checkpoint, save_checkpoint, save_png,
                              save_ppm, view_to_u8)
-from tendrils_tpu.spawners import spawn_ball
+from tendrils.spawners import spawn_ball
 
 
 def test_png_roundtrip(tmp_path):

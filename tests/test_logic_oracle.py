@@ -5,8 +5,8 @@ simplex implementation; flow/target/damping/clamp/integration all exact)."""
 import jax.numpy as jnp
 import numpy as np
 
-from tendrils_tpu.engine import default_params
-from tendrils_tpu.ops import logic
+from tendrils.engine import default_params
+from tendrils.ops import logic
 
 
 def numpy_logic_oracle(pos, vel, flow_grid, targets, p, uv, i01, view_size,

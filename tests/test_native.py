@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-native = pytest.importorskip("tendrils_tpu.native")
+native = pytest.importorskip("tendrils.native")
 
 
 def test_builds_and_loads():
@@ -13,7 +13,7 @@ def test_builds_and_loads():
 def test_polyline_normals_matches_numpy():
     # Compare against the pure-numpy implementation (bypass the native
     # dispatch inside geom by calling the fallback path logic directly).
-    from tendrils_tpu import geom
+    from tendrils import geom
 
     rng = np.random.default_rng(0)
     path = rng.uniform(-1, 1, (64, 2))

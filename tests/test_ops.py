@@ -6,10 +6,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from tendrils_tpu.const import INERT
-from tendrils_tpu.ops import coords, filters, flow, logic, sample, spawn
-from tendrils_tpu.ops.noise import snoise3
-from tendrils_tpu.ops.rand import glsl_random
+from tendrils.const import INERT
+from tendrils.ops import coords, filters, flow, logic, sample, spawn
+from tendrils.ops.noise import snoise3
+from tendrils.ops.rand import glsl_random
 
 
 class TestNoise:
@@ -129,7 +129,7 @@ class TestFilters:
 
 
 def _params():
-    from tendrils_tpu.engine import default_params
+    from tendrils.engine import default_params
     return default_params()
 
 
@@ -238,7 +238,7 @@ class TestFlowPyramid:
         # weights levels 1/(l+1) — ref flow-at-screen-pos.glsl (the
         # reference's intended-but-disabled mipmap path, index.js:305-312).
         import jax.numpy as jnp
-        from tendrils_tpu.engine import flow_pyramid
+        from tendrils.engine import flow_pyramid
         g = jnp.zeros((4, 8, 8)).at[0, 0:2, 0:2].set(4.0)
         levels = flow_pyramid(g, 3)
         assert [l.shape for l in levels] == [(4, 8, 8), (4, 4, 4),
@@ -247,8 +247,8 @@ class TestFlowPyramid:
         assert float(levels[2][0, 0, 0]) == 1.0  # next pool dilutes 4/16
 
     def test_engine_runs_with_levels(self):
-        from tendrils_tpu import EngineConfig, Tendrils
-        from tendrils_tpu.ops import spawn as sp
+        from tendrils import EngineConfig, Tendrils
+        from tendrils.ops import spawn as sp
         eng = Tendrils(EngineConfig(root_num=16, view_res=(32, 64),
                                     flow_levels=2, flow_samples=2,
                                     flow_rows=1, view_samples=2))

@@ -1,19 +1,19 @@
-"""Multi-chip tests on the 8-virtual-device CPU mesh (SURVEY §4): the
-data-parallel frame must match the single-device frame exactly (the psum'd
-splat partial sums are associative float adds over disjoint particle sets;
+"""Multi-device tests on the 8-virtual-device CPU mesh (SURVEY §4): the
+sharded frames must match the single-device frame (the reduced splat
+partial sums are float adds over disjoint particle sets in another order;
 CPU keeps them bit-stable enough for tight tolerances)."""
 
-import dataclasses
+import re
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from tendrils_tpu import EngineConfig, Tendrils
-from tendrils_tpu.engine import draw_sim, step_sim
-from tendrils_tpu.ops import spawn
-from tendrils_tpu.parallel import make_mesh, parallel_frame, shard_sim
+from tendrils import EngineConfig, Tendrils
+from tendrils.engine import draw_sim, step_sim
+from tendrils.ops import spawn
+from tendrils.parallel import make_mesh, parallel_frame, shard_sim
 
 
 @pytest.fixture
@@ -32,56 +32,55 @@ def test_mesh_has_8_devices():
     assert mesh.devices.size == 8
 
 
-def _by_idx(sim):
-    """Particle rows realigned to identity order (the resident-stream frame
-    permutes rows; `sim.idx` tracks identity)."""
-    perm = np.argsort(np.asarray(sim.idx), kind="stable")
-    return np.asarray(sim.particles)[:, perm]
+def _clone(s):
+    """Deep copy: the frame functions donate their input, and `shard_sim`
+    may alias the source buffers."""
+    return jax.tree_util.tree_map(jnp.array, s)
 
 
-@pytest.mark.parametrize("backend", ["xla", "pallas"])
-def test_parallel_frame_matches_single(engine, backend):
-    """DP shard_map vs single device, on BOTH the generic XLA backends and
-    the fused Pallas fast path (interpret mode on the CPU mesh) — the
-    performance path must itself run sharded (VERDICT r1 item 6). The
-    pallas config runs the RESIDENT sharded frame (VERDICT r3 item 2):
-    rows come back tile-sorted (realigned by idx here) and the velocity
-    crosses the q15 word — position rows stay exact."""
-    eng = engine
-    cfg = dataclasses.replace(eng.config, splat_backend=backend,
-                              gather_backend=backend)
-    params = eng.params()
-    t, dt = jnp.float32(16.0), jnp.float32(16.0)
+def _warm(eng, frames=3):
+    """Advance the fixture a few single-device frames so the flow grid the
+    compared frames read is non-trivial."""
+    for _ in range(frames):
+        eng.frame()
+    return eng
 
-    # Single-device reference running the SAME draw variant the sharded
-    # body picks (resident on the pallas carry path, classic otherwise).
-    from tendrils_tpu.engine import resident_enabled
-    resident = resident_enabled(cfg)
-    ref = step_sim(eng.sim, params, t, dt, cfg, eng._view_size)
-    if resident:
-        ref = draw_sim(ref, params, t, cfg, eng._view_size, want_aux=True,
-                       resident=True, stepped=True, read_time=t + dt,
-                       want_force=True)[0]
-    else:
-        ref = draw_sim(ref, params, t, cfg, eng._view_size)
 
-    mesh = make_mesh()
-    sim_sharded = shard_sim(eng.sim, mesh)
-    out = parallel_frame(sim_sharded, params, t, dt, cfg,
-                         eng._view_size, mesh)
+def _single_frames(eng, params, times, dt):
+    sim = _clone(eng.sim)
+    for t in times:
+        sim = step_sim(sim, params, t, dt, eng.config, eng._view_size)
+        sim = draw_sim(sim, params, t, eng.config, eng._view_size)
+    return sim
 
-    # Identical per-row math; only the psum's float add order differs.
-    np.testing.assert_allclose(_by_idx(out), _by_idx(ref),
-                               rtol=1e-4, atol=1e-6)
+
+def _assert_frames_match(out, ref):
+    # Identical per-row math; only the collective's float add order differs.
+    np.testing.assert_allclose(np.asarray(out.particles),
+                               np.asarray(ref.particles), rtol=1e-4,
+                               atol=1e-6)
     np.testing.assert_allclose(np.asarray(out.flow), np.asarray(ref.flow),
                                rtol=1e-4, atol=1e-5)
     np.testing.assert_allclose(np.asarray(out.view), np.asarray(ref.view),
                                rtol=1e-4, atol=1e-5)
-    if resident:
-        assert out.force is not None
-        f_out = np.asarray(out.force)[:, np.argsort(np.asarray(out.idx))]
-        f_ref = np.asarray(ref.force)[:, np.argsort(np.asarray(ref.idx))]
-        np.testing.assert_allclose(f_out, f_ref, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("n_dev", [2, 4, 8])
+def test_parallel_frame_matches_single(engine, n_dev):
+    """DP shard_map (psum'd splat partials) over `n_dev` devices vs the
+    single-device frame, two frames from a state with live flow."""
+    eng = _warm(engine)
+    params = eng.params()
+    dt = jnp.float32(16.0)
+    times = [jnp.float32(100.0), jnp.float32(116.0)]
+    ref = _single_frames(eng, params, times, dt)
+
+    mesh = make_mesh(jax.devices()[:n_dev])
+    sim = shard_sim(_clone(eng.sim), mesh)
+    for t in times:
+        sim = parallel_frame(sim, params, t, dt, eng.config, eng._view_size,
+                             mesh)
+    _assert_frames_match(sim, ref)
 
 
 def test_parallel_multi_step_stable(engine):
@@ -102,7 +101,7 @@ def test_parallel_multi_step_stable(engine):
 
 
 def test_parallel_tendrils_facade(engine):
-    from tendrils_tpu.parallel.sharding import ParallelTendrils
+    from tendrils.parallel.sharding import ParallelTendrils
     par = ParallelTendrils(engine)
     par.frame()
     par.frame()
@@ -111,38 +110,30 @@ def test_parallel_tendrils_facade(engine):
     assert np.abs(np.asarray(engine.sim.flow)[3]).sum() > 0
 
 
-def test_spatial_slab_matches_single(engine):
-    """Row-slab grid partition (reduce-scatter resolve + 2-channel force
-    all-gather) must reproduce the single-device frame — SURVEY §2.9's
-    high-resolution design, VERDICT r1 item 7."""
-    from tendrils_tpu.parallel import shard_sim_spatial, spatial_frame
+@pytest.mark.parametrize("n_dev", [2, 4, 8])
+def test_spatial_slab_matches_single(engine, n_dev):
+    """Row-slab grid partition (reduce-scatter resolve + 3-channel flow
+    all-gather) over `n_dev` devices reproduces the single-device frame —
+    SURVEY §2.9's high-resolution design — two frames from a state with
+    live flow."""
+    from tendrils.parallel import shard_sim_spatial, spatial_frame
 
-    eng = engine
-    # The slab step pre-decays then interpolates (like the pallas gather);
-    # compare against a single-device engine using the same order.
-    cfg = dataclasses.replace(eng.config, gather_backend="pallas")
+    eng = _warm(engine)
     params = eng.params()
-    t, dt = jnp.float32(16.0), jnp.float32(16.0)
+    dt = jnp.float32(16.0)
+    times = [jnp.float32(100.0), jnp.float32(116.0)]
+    ref = _single_frames(eng, params, times, dt)
 
-    ref = step_sim(eng.sim, params, t, dt, cfg, eng._view_size)
-    ref = draw_sim(ref, params, t, cfg, eng._view_size)
-
-    mesh = make_mesh()
-    sim_sharded = shard_sim_spatial(eng.sim, mesh)
-    out = spatial_frame(sim_sharded, params, t, dt, cfg,
-                        eng._view_size, mesh)
-
-    np.testing.assert_allclose(np.asarray(out.particles),
-                               np.asarray(ref.particles), rtol=1e-4,
-                               atol=5e-5)
-    np.testing.assert_allclose(np.asarray(out.flow), np.asarray(ref.flow),
-                               rtol=1e-4, atol=1e-5)
-    np.testing.assert_allclose(np.asarray(out.view), np.asarray(ref.view),
-                               rtol=1e-4, atol=1e-5)
+    mesh = make_mesh(jax.devices()[:n_dev])
+    sim = shard_sim_spatial(_clone(eng.sim), mesh)
+    for t in times:
+        sim = spatial_frame(sim, params, t, dt, eng.config, eng._view_size,
+                            mesh)
+    _assert_frames_match(sim, ref)
 
 
 def test_spatial_multi_step_stable(engine):
-    from tendrils_tpu.parallel.spatial import SpatialTendrils
+    from tendrils.parallel.spatial import SpatialTendrils
     par = SpatialTendrils(engine)
     for _ in range(3):
         par.frame()
@@ -154,47 +145,11 @@ def test_spatial_multi_step_stable(engine):
     assert shardings.num_devices == 8
 
 
-def test_parallel_carry_force(engine):
-    """The DP sharded frame carries each shard's flow force (VERDICT r2
-    item 5): second frame runs with force present, and the carried
-    trajectory matches the no-carry sharded trajectory to q15 tolerance."""
-    eng = engine
-    mesh = make_mesh()
-    params = eng.params()
-    dt = jnp.float32(16.0)
-
-    cfg_c = dataclasses.replace(eng.config, splat_backend="pallas",
-                                gather_backend="pallas", carry_force=True)
-    cfg_n = dataclasses.replace(cfg_c, carry_force=False)
-
-    def clone(s):
-        # parallel_frame donates its input; shard_sim may alias the source
-        # buffers, so each run gets a deep copy.
-        return jax.tree_util.tree_map(jnp.array, s)
-
-    sims = {}
-    for name, cfg in (("carry", cfg_c), ("nocarry", cfg_n)):
-        sim = shard_sim(clone(eng.sim), mesh)
-        for i in range(3):
-            sim = parallel_frame(sim, params, jnp.float32(16.0 * (i + 1)),
-                                 dt, cfg, eng._view_size, mesh)
-        sims[name] = sim
-    assert sims["carry"].force is not None
-    assert sims["carry"].force.shape == (2, eng.config.n)
-    assert sims["nocarry"].force is None
-    np.testing.assert_allclose(_by_idx(sims["carry"]),
-                               _by_idx(sims["nocarry"]),
-                               atol=5e-4)
-    # Bulk agreement (q15 force quantisation only).
-    d = np.abs(_by_idx(sims["carry"]) - _by_idx(sims["nocarry"]))
-    assert (d > 5e-5).mean() < 0.02
-
-
 def test_multihost_mesh_matches_single_axis(engine):
-    """(hosts, chips) mesh: same specs/collectives as the flat mesh, psum
-    staged chips-then-hosts (VERDICT r2 item 7). Validated by reshaping the
+    """(hosts, devices) mesh: same specs/collectives as the flat mesh, psum
+    staged devices-then-hosts. Validated by reshaping the
     8 CPU devices to (2, 4) and comparing against the flat-mesh frame."""
-    from tendrils_tpu.parallel import make_multihost_mesh
+    from tendrils.parallel import make_multihost_mesh
 
     eng = engine
     params = eng.params()
@@ -205,12 +160,9 @@ def test_multihost_mesh_matches_single_axis(engine):
     assert mesh_mh.devices.shape == (2, 4)
     assert mesh_mh.axis_names == ("host", "dp")
 
-    def clone(s):
-        return jax.tree_util.tree_map(jnp.array, s)
-
-    out_flat = parallel_frame(shard_sim(clone(eng.sim), mesh_flat), params,
+    out_flat = parallel_frame(shard_sim(_clone(eng.sim), mesh_flat), params,
                               t, dt, eng.config, eng._view_size, mesh_flat)
-    out_mh = parallel_frame(shard_sim(clone(eng.sim), mesh_mh), params, t,
+    out_mh = parallel_frame(shard_sim(_clone(eng.sim), mesh_mh), params, t,
                             dt, eng.config, eng._view_size, mesh_mh)
     np.testing.assert_allclose(np.asarray(out_mh.particles),
                                np.asarray(out_flat.particles), rtol=1e-5,
@@ -220,196 +172,45 @@ def test_multihost_mesh_matches_single_axis(engine):
                                atol=1e-6)
 
 
-def test_spatial_slab_pallas_backend(engine):
-    """Slab mode on the fused Pallas splat (VERDICT r2 item 6): matches
-    the single-device FUSED draw (same kernel, slab-scattered resolve)."""
-    from tendrils_tpu.parallel import shard_sim_spatial, spatial_frame
-
-    eng = engine
-    cfg = dataclasses.replace(eng.config, splat_backend="pallas",
-                              gather_backend="pallas", fused_draw=True,
-                              carry_force=False)
-    params = eng.params()
-    t, dt = jnp.float32(16.0), jnp.float32(16.0)
-
-    ref = step_sim(eng.sim, params, t, dt, cfg, eng._view_size)
-    ref = draw_sim(ref, params, t, cfg, eng._view_size)
-
-    mesh = make_mesh()
-    sim_sharded = shard_sim_spatial(eng.sim, mesh)
-    out = spatial_frame(sim_sharded, params, t, dt, cfg,
-                        eng._view_size, mesh)
-
-    np.testing.assert_allclose(np.asarray(out.particles),
-                               np.asarray(ref.particles), rtol=1e-4,
-                               atol=5e-5)
-    np.testing.assert_allclose(np.asarray(out.flow), np.asarray(ref.flow),
-                               rtol=1e-4, atol=1e-5)
-    np.testing.assert_allclose(np.asarray(out.view), np.asarray(ref.view),
-                               rtol=1e-4, atol=1e-5)
+_DTYPE_BYTES = {"f32": 4, "bf16": 2, "s32": 4, "u32": 4, "pred": 1,
+                "f16": 2, "s8": 1, "u8": 1}
 
 
-def test_spatial_carry_force(engine):
-    """Slab mode's carried-force path (VERDICT r3 item 4): on the fused
-    Pallas config the slab frame carries each shard's force (no in-step
-    gather at all from frame 2 on), and the trajectory matches the
-    no-carry slab frame to q15 force tolerance."""
-    from tendrils_tpu.parallel import shard_sim_spatial, spatial_frame
-
-    eng = engine
-    mesh = make_mesh()
-    params = eng.params()
-    dt = jnp.float32(16.0)
-    cfg_c = dataclasses.replace(eng.config, splat_backend="pallas",
-                                gather_backend="pallas", carry_force=True)
-    cfg_n = dataclasses.replace(cfg_c, carry_force=False)
-
-    def clone(s):
-        return jax.tree_util.tree_map(jnp.array, s)
-
-    sims = {}
-    for name, cfg in (("carry", cfg_c), ("nocarry", cfg_n)):
-        sim = shard_sim_spatial(clone(eng.sim), mesh)
-        for i in range(3):
-            sim = spatial_frame(sim, params, jnp.float32(16.0 * (i + 1)),
-                                dt, cfg, eng._view_size, mesh)
-        sims[name] = sim
-    assert sims["carry"].force is not None
-    assert sims["carry"].force.shape == (2, eng.config.n)
-    assert sims["nocarry"].force is None
-    np.testing.assert_allclose(np.asarray(sims["carry"].particles),
-                               np.asarray(sims["nocarry"].particles),
-                               atol=5e-4)
-    d = np.abs(np.asarray(sims["carry"].particles)
-               - np.asarray(sims["nocarry"].particles))
-    assert (d > 5e-5).mean() < 0.02
-
-
-def test_spatial_step_avoids_xla_gather(engine, monkeypatch):
-    """The slab step on the pallas backend must never fall back to the
-    XLA `jnp.take` bilinear gather (~1 µs/element on real TPU — VERDICT
-    r3 item 4): `sample.bilinear_sample` is poisoned and a full slab frame
-    (force=None, so the step really gathers) still runs."""
-    from tendrils_tpu.ops import sample
-    from tendrils_tpu.parallel import shard_sim_spatial, spatial_frame
-
-    def boom(*a, **k):
-        raise AssertionError("slab step used the XLA take-gather")
-
-    monkeypatch.setattr(sample, "bilinear_sample", boom)
-
-    eng = engine
-    cfg = dataclasses.replace(eng.config, splat_backend="pallas",
-                              gather_backend="pallas", carry_force=False)
-    mesh = make_mesh()
-    sim = shard_sim_spatial(jax.tree_util.tree_map(jnp.array, eng.sim),
-                            mesh)
-    out = spatial_frame(sim, eng.params(), jnp.float32(16.0),
-                        jnp.float32(16.0), cfg, eng._view_size, mesh)
-    assert np.isfinite(np.asarray(out.particles)).all()
-
-
-def _sort_stats(hlo_txt):
-    """(count, max operand arity) of the sort ops in an HLO dump."""
-    import re
-    sorts = re.findall(r"sort\(([^)]*)\)", hlo_txt)
-    return len(sorts), max((s.count("%") for s in sorts), default=0)
-
-
-def test_parallel_frame_runs_single_chip_fast_path(engine):
-    """The sharded frame compiles to the SAME draw variant as the
-    single-chip hot frame (VERDICT r3 item 2): exactly ONE lax.sort in the
-    whole step+draw (the old sharded path paid a second q15 force un-sort),
-    with the resident operand count (the one extra sharded operand is the
-    global-id stream, gather=2; +1 hidden iota when pad rows force a
-    stable sort at this tiny fixture size)."""
-    from tendrils_tpu.engine import _frame_jit
-
-    eng = engine
-    cfg = dataclasses.replace(eng.config, splat_backend="pallas",
-                              gather_backend="pallas")
-    params = eng.params()
-    t, dt = jnp.float32(16.0), jnp.float32(16.0)
-
-    def clone(s):
-        return jax.tree_util.tree_map(jnp.array, s)
-
-    # The steady-state frame variant (carried force POPULATED — frame 1
-    # additionally pays the standalone seed gather's sort + un-sort).
-    sim1 = _frame_jit(clone(eng.sim), params, t, dt, cfg, eng._view_size)
-    assert sim1.force is not None
-    single_txt = jax.jit(
-        lambda s: _frame_jit(s, params, t, dt, cfg, eng._view_size)
-    ).lower(clone(sim1)).compile().as_text()
-
-    mesh = make_mesh()
-    par1 = parallel_frame(shard_sim(clone(eng.sim), mesh), params, t, dt,
-                          cfg, eng._view_size, mesh)
-    assert par1.force is not None
-    par_txt = jax.jit(
-        lambda s: parallel_frame(s, params, t, dt, cfg, eng._view_size,
-                                 mesh)
-    ).lower(clone(par1)).compile().as_text()
-
-    n_single, arity_single = _sort_stats(single_txt)
-    n_par, arity_par = _sort_stats(par_txt)
-    assert n_single == 1, f"single-chip frame has {n_single} sorts"
-    assert n_par == 1, f"sharded frame has {n_par} sorts (fast path lost)"
-    assert arity_par <= arity_single + 2, (arity_par, arity_single)
-
-
-def test_parallel_fast_resolve_matches(engine):
-    """The sharded frame with the fused Pallas resolve (raw-accumulator
-    psum) matches the XLA-resolve sharded frame (VERDICT r3 item 2)."""
-    eng = engine
-    # resolve_eligible needs w % 128 == 0.
-    cfg = dataclasses.replace(eng.config, view_res=(32, 128),
-                              splat_backend="pallas",
-                              gather_backend="pallas")
-    eng.config = cfg
-    eng._setup_static()
-    eng.setup()
-    eng.spawn_shader(lambda p, e: spawn.ball(p, e._frag_xy, 0.5, 0.01))
-    params = eng.params()
-    t, dt = jnp.float32(16.0), jnp.float32(16.0)
-    mesh = make_mesh()
-
-    def clone(s):
-        return jax.tree_util.tree_map(jnp.array, s)
-
-    outs = {}
-    for fr in (False, True):
-        outs[fr] = parallel_frame(shard_sim(clone(eng.sim), mesh), params,
-                                  t, dt, cfg, eng._view_size, mesh,
-                                  fast_resolve=fr)
-    np.testing.assert_allclose(_by_idx(outs[True]), _by_idx(outs[False]),
-                               rtol=1e-5, atol=1e-6)
-    np.testing.assert_allclose(np.asarray(outs[True].flow),
-                               np.asarray(outs[False].flow),
-                               rtol=1e-5, atol=1e-6)
-    np.testing.assert_allclose(np.asarray(outs[True].view),
-                               np.asarray(outs[False].view),
-                               rtol=1e-5, atol=1e-6)
-    f_t = np.asarray(outs[True].force)[
-        :, np.argsort(np.asarray(outs[True].idx))]
-    f_f = np.asarray(outs[False].force)[
-        :, np.argsort(np.asarray(outs[False].idx))]
-    np.testing.assert_allclose(f_t, f_f, rtol=1e-5, atol=1e-6)
+def collective_bytes(txt, n_dev):
+    """Bytes each device moves for the collectives of an optimised HLO
+    dump, ring model: an all-reduce moves `2·(D-1)/D` of its bytes, a
+    reduce-scatter or all-gather `(D-1)/D` of the full array. Returns
+    `(rows, total)` with one `(kind, bytes)` row per collective."""
+    rows = []
+    for line in txt.splitlines():
+        m = re.search(r"= (.*?) (all-reduce|reduce-scatter|all-gather|"
+                      r"collective-permute|all-to-all)\(", line)
+        if not m:
+            continue
+        shapes, kind = re.sub(r"/\*.*?\*/", "", m.group(1)), m.group(2)
+        nbytes = sum(int(np.prod([int(d) for d in dims.split(",") if d]))
+                     * _DTYPE_BYTES[dt]
+                     for dt, dims in re.findall(r"(\w+)\[([\d,]*)\]", shapes)
+                     if dt in _DTYPE_BYTES)
+        # HLO prints each op's OUTPUT shape: a reduce-scatter's output is
+        # the 1/D shard, an all-gather's the gathered whole.
+        if kind == "all-reduce":
+            moved = 2 * (n_dev - 1) / n_dev * nbytes
+        elif kind == "reduce-scatter":
+            moved = (n_dev - 1) * nbytes
+        else:
+            moved = (n_dev - 1) / n_dev * nbytes
+        rows.append((kind, moved))
+    return rows, sum(m for _, m in rows)
 
 
 def test_slab_mode_moves_fewer_ici_bytes(engine):
-    """The slab layout's reason to exist: measured (not paper-math)
-    collective traffic below replicate+psum (VERDICT r2 weak #5). Parses
-    the compiled HLO's actual collectives via `scripts/ici_bytes.py`'s
-    ring model; the ratio is resolution-independent (every collective is
-    grid-proportional) — measured 0.583x at 1080p/8 devices."""
-    import os
-    import sys
-    sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..",
-                                    "scripts"))
-    from ici_bytes import collective_bytes
-
-    from tendrils_tpu.parallel import shard_sim_spatial, spatial_frame
+    """The slab layout's reason to exist: collective traffic, counted from
+    the compiled program's collectives, below replicate+psum. The ratio is
+    resolution-independent (every collective is grid-proportional): 12
+    reduce-scattered splat planes + 3 all-gathered flow planes against 12
+    all-reduced ones, 15/24 = 0.625."""
+    from tendrils.parallel import shard_sim_spatial, spatial_frame
 
     eng = engine
     cfg = eng.config
@@ -427,4 +228,21 @@ def test_slab_mode_moves_fewer_ici_bytes(engine):
         rows, total = collective_bytes(txt, mesh.devices.size)
         assert rows, f"{name}: no collectives found in HLO"
         totals[name] = total
-    assert totals["slab"] < 0.7 * totals["psum"], totals
+    assert 0.6 * totals["psum"] < totals["slab"] < 0.65 * totals["psum"], \
+        totals
+
+
+@pytest.mark.parametrize("cfg_kw,match", [
+    ({"view_res": (30, 64)}, "not divisible"),
+    ({"flow_res": (16, 32)}, "one grid shape"),
+])
+def test_spatial_frame_rejects_unsupported_layouts(engine, cfg_kw, match):
+    import dataclasses
+
+    from tendrils.parallel import spatial_frame
+    eng = engine
+    cfg = dataclasses.replace(eng.config, **cfg_kw)
+    mesh = make_mesh(jax.devices()[:4])
+    with pytest.raises(ValueError, match=match):
+        spatial_frame(eng.sim, eng.params(), jnp.float32(16.0),
+                      jnp.float32(16.0), cfg, eng._view_size, mesh)

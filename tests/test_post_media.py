@@ -4,12 +4,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from tendrils_tpu import EngineConfig, Tendrils
-from tendrils_tpu.flow_line import FlowLine, FlowLines
-from tendrils_tpu.geom import Line, polyline_normals
-from tendrils_tpu.media import OpticalFlow, grid_to_image, image_to_grid
-from tendrils_tpu.ops import post
-from tendrils_tpu.ops.optical_flow import gray_scale, optical_flow
+from tendrils import EngineConfig, Tendrils
+from tendrils.flow_line import FlowLine, FlowLines
+from tendrils.geom import Line, polyline_normals
+from tendrils.media import OpticalFlow, grid_to_image, image_to_grid
+from tendrils.ops import post
+from tendrils.ops.optical_flow import gray_scale, optical_flow
 
 
 class TestBlend:
@@ -31,9 +31,11 @@ class TestBlend:
 
 class TestBlur:
     def test_box_blur_preserves_mean(self):
+        # The first stack level (two radius-2 boxes) is an averaging
+        # operator: the mean survives up to the edge replication.
         rng = np.random.default_rng(0)
         img = jnp.asarray(rng.uniform(0, 1, (1, 32, 64)), jnp.float32)
-        out = post.box_blur(img, 3)
+        out = post.blur_stack(img, (3,))[1]
         assert abs(float(out.mean()) - float(img.mean())) < 1e-3
 
     def test_vignette_blur_edges_only(self):
@@ -216,8 +218,8 @@ def test_u8_feed_matches_f32():
     normalised on device — the resulting flow payload must equal the f32
     feed exactly (u8/255 is exact in f32)."""
     import numpy as np
-    from tendrils_tpu.media import OpticalFlow
-    from tendrils_tpu.ops.optical_flow import optical_flow
+    from tendrils.media import OpticalFlow
+    from tendrils.ops.optical_flow import optical_flow
 
     rng = np.random.RandomState(11)
     img_u8 = (rng.rand(24, 32, 3) * 255).astype(np.uint8)

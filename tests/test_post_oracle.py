@@ -20,8 +20,8 @@ import pytest
 
 import jax.numpy as jnp
 
-from tendrils_tpu.ops import post
-from post_oracles import bokeh_exact, hash_blur_exact
+from tendrils.ops import post
+from post_oracles import bokeh_exact, box_stack_reference, hash_blur_exact
 
 
 def mkimg(seed, h=192, w=192):
@@ -106,18 +106,19 @@ def test_level_lut_monotone_and_saturating():
 
 
 def test_blur_stack_matmul_matches_cumsum():
-    """The MXU matmul stack (`blur_stack(mats=...)`) is the SAME linear
-    operator as the sequential cumsum boxes — banded matrix composition
-    reproduces the clamped edges exactly, so outputs agree to f32
-    rounding. Non-square, non-tile-multiple dims on purpose."""
+    """The matrix stack (`blur_stack`) is the SAME linear operator as the
+    sequential cumsum boxes (`post_oracles.box_stack_reference`) — banded
+    matrix composition reproduces the clamped edges exactly, so outputs
+    agree to f32 rounding. Non-square, non-tile-multiple dims on
+    purpose."""
     img = mkimg(7, h=61, w=107)
     t = jnp.asarray(img)
     for radii in ((2, 6, 16), (1, 3, 8)):
         mats = post.blur_stack_matrices((61, 107), radii)
-        ref = post.blur_stack(t, radii)
+        ref = box_stack_reference(img, radii)
         got = post.blur_stack(t, radii, mats=mats)
         for lvl, (r, g) in enumerate(zip(ref, got)):
-            err = float(jnp.max(jnp.abs(r - g)))
+            err = float(np.max(np.abs(r - np.asarray(g))))
             assert err < 1e-4, (radii, lvl, err)
         # Level matrices are averaging operators: each output's kernel
         # sums to 1 (rows of A; columns of the pre-transposed Bt).
@@ -127,12 +128,19 @@ def test_blur_stack_matmul_matches_cumsum():
             assert np.allclose(np.asarray(m).sum(axis=0), 1.0, atol=1e-5)
 
 
-def test_bokeh_matmul_matches_cumsum():
+def test_bokeh_matmul_matches_cumsum(monkeypatch):
+    """Bokeh through the matrix stack against bokeh through the float64
+    cumsum reference stack (the same pass, un-jitted, with
+    `post.blur_stack` swapped for `box_stack_reference`)."""
     img = mkimg(9)
     t = jnp.asarray(img)
     mats = post.blur_stack_matrices(img.shape[1:], (2, 6, 16))
-    a = np.asarray(post.bokeh(t, 2.0, 20.0))
     b = np.asarray(post.bokeh(t, 2.0, 20.0, mats=mats))
+    monkeypatch.setattr(
+        post, "blur_stack", lambda x, radii, mats=None: [
+            jnp.asarray(v, jnp.float32)
+            for v in box_stack_reference(np.asarray(x), radii)])
+    a = np.asarray(post.bokeh.__wrapped__(t, 2.0, 20.0))
     # The num/den division amplifies f32 rounding where den is small:
     # measured max 2.2e-3 / p99.9 5e-4 on this frame.
     assert np.abs(a - b).max() < 5e-3

@@ -1,4 +1,4 @@
-"""Preset-replay statistical corridors (VERDICT r2 item 8).
+"""Preset-replay statistical corridors.
 
 Three presets replay 60 fixed-step frames headless; trajectory statistics
 (alive fraction, mean alive speed, view alpha mass, flow weight mass) must
@@ -7,8 +7,8 @@ stay inside pinned bands at frames 10/30/60.
 The bands were generated by `scripts/gen_corridors.py` on the XLA backend
 (3 seeds x 60 frames; the sim's spawn hashes are seed-deterministic, so
 the band width is a ±25% relative margin around the recorded trajectory).
-They are intentionally wide enough to survive compiler/backend rounding
-and the Pallas path's sub-pixel deposit quantisation, and tight enough to
+They are intentionally wide enough to survive compiler/backend rounding,
+and tight enough to
 catch force-model drift (a damping, flow-force or colour-alpha regression
 moves these statistics far more than 25%). No re-pin needed on
 recompilation — only on deliberate semantic change.
@@ -110,7 +110,7 @@ def stats(demo):
     )
 
 
-# Post-stack corridor (VERDICT r4 #8): the MXU banded-matmul blur+bokeh
+# Post-stack corridor: the banded-matrix blur+bokeh
 # screen passes, exercised end-to-end through the demo's one-dispatch
 # io-frame. Pissarides carries the heaviest blur preset (radius 12,
 # limit 0.3); bokeh (radius 3, amount 40 — bench config-5 settings) is
@@ -126,9 +126,8 @@ POST_BANDS = {
 
 
 def test_post_stack_corridor():
-    from tendrils_tpu.app.demo import TendrilsDemo
-    demo = TendrilsDemo({"quality": 0}, view_res=(90, 160), root_num=32,
-                        splat_backend="xla", gather_backend="xla", seed=0)
+    from tendrils.app.demo import TendrilsDemo
+    demo = TendrilsDemo({"quality": 0}, view_res=(90, 160), root_num=32, seed=0)
     demo.apply_preset("Pissarides")
     # apply_preset resets bokeh to its (off) default — layer it back on
     # to exercise the full blur→bokeh post stack.
@@ -147,9 +146,8 @@ def test_post_stack_corridor():
 
 @pytest.mark.parametrize("preset", list(BANDS))
 def test_preset_corridor(preset):
-    from tendrils_tpu.app.demo import TendrilsDemo
-    demo = TendrilsDemo({"quality": 0}, view_res=(90, 160), root_num=32,
-                        splat_backend="xla", gather_backend="xla", seed=0)
+    from tendrils.app.demo import TendrilsDemo
+    demo = TendrilsDemo({"quality": 0}, view_res=(90, 160), root_num=32, seed=0)
     demo.apply_preset(preset)
     for f in range(1, 61):
         demo.render()

@@ -16,7 +16,7 @@ jnp code), plus hard-pinned literal vectors generated from that transcription.
 A semantic drift in either implementation breaks the pins; re-pinning is only
 legitimate if the transcription below (i.e. the GLSL algorithm itself) agrees.
 
-fp32 tolerance notes (documented, per VERDICT r1 item 8):
+fp32 tolerance notes:
   - GLSL highp float IS fp32, so fp32 evaluation is the reference semantics.
     The package's `mod(dt, 3.14)` keeps the sine argument small, but at
     frag-coordinate magnitudes (dt up to ~1e5) the fp32 mod itself
@@ -37,8 +37,8 @@ fp32 tolerance notes (documented, per VERDICT r1 item 8):
 
 import numpy as np
 
-from tendrils_tpu.ops.noise import snoise3
-from tendrils_tpu.ops.rand import glsl_random
+from tendrils.ops.noise import snoise3
+from tendrils.ops.rand import glsl_random
 
 F = np.float32
 
@@ -209,7 +209,7 @@ def test_ball_spawn_randoms_match_reference():
     through the sine's 1/256 fract granularity; real GPUs differ too) — the
     hash *values* at that point are still covered by
     test_transcription_matches_pins."""
-    from tendrils_tpu.ops.spawn import ball
+    from tendrils.ops.spawn import ball
     radius, speed = 0.6, 0.01
     n = BALL_FRAG.shape[0]
     particles = np.zeros((4, n), F)
@@ -245,8 +245,8 @@ def test_luma_triples_match_shipped_shaders():
     Rec-601 `(0.299, 0.587, 0.114)`; the local `src/utils/gray-scale.glsl`
     (optical flow) is `(0.3, 0.59, 0.11)` — both verified against the
     bundle-inlined shader text."""
-    from tendrils_tpu.ops.optical_flow import gray_scale
-    from tendrils_tpu.ops.spawn import luma
+    from tendrils.ops.optical_flow import gray_scale
+    from tendrils.ops.spawn import luma
     px = np.array([[1.0], [0.0], [0.0], [1.0]], F)
     img = np.ones((4, 1, 1), F) * px[:, :, None]
     np.testing.assert_allclose(float(luma(px)[0]), 0.299, atol=1e-6)

@@ -3,9 +3,9 @@
 import jax.numpy as jnp
 import numpy as np
 
-from tendrils_tpu import EngineConfig, Tendrils
-from tendrils_tpu.const import INERT
-from tendrils_tpu.spawners import (GeometrySpawner, PixelSpawner, spawn_ball,
+from tendrils import EngineConfig, Tendrils
+from tendrils.const import INERT
+from tendrils.spawners import (GeometrySpawner, PixelSpawner, spawn_ball,
                                    spawn_init)
 
 

@@ -6,7 +6,7 @@ fragments)."""
 import jax.numpy as jnp
 import numpy as np
 
-from tendrils_tpu.ops import splat
+from tendrils.ops import splat
 
 
 def test_point_splat_bilinear_weights():

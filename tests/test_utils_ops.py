@@ -4,10 +4,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from tendrils_tpu.ops import glsl_utils as g
-from tendrils_tpu.ops import physics
-from tendrils_tpu.ops.spawn import test_simple as simple_score
-from tendrils_tpu.utils import fp
+from tendrils.ops import glsl_utils as g
+from tendrils.ops import physics
+from tendrils.ops.spawn import test_simple as simple_score
+from tendrils.utils import fp
 
 
 class TestPhysics:
@@ -74,3 +74,22 @@ class TestFP:
         add3 = fp.curry(lambda a, b, c: a + b + c)
         assert add3(1)(2)(3) == 6
         assert add3(1, 2)(3) == 6
+
+
+class TestProfiling:
+    def test_frame_profiler_sections(self):
+        import jax.numpy as jnp
+
+        from tendrils.utils.profiling import FrameProfiler
+        prof = FrameProfiler(history=4)
+        for _ in range(3):
+            prof.begin_frame()
+            with prof.section("work", jnp.ones(8) * 2.0):
+                pass
+            with prof.section("boxed") as box:
+                box["result"] = jnp.arange(4) + 1
+            prof.end_frame()
+        s = prof.summary()
+        assert s["work"]["count"] == 3 and s["boxed"]["count"] == 3
+        assert s["frame"]["mean"] >= s["work"]["mean"] >= 0.0
+        assert "work" in prof.report()
